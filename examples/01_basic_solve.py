@@ -10,20 +10,20 @@ import sys
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # or leave default for TPU
+jax.config.update("jax_platforms", "cpu")  # or leave default for the GPU
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import (
+from domain_decomposed_pde_solver.io import (
     ExodusSolutionWriter,
     box_mesh,
     read_exodus,
 )
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve, jacobi_preconditioner
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.solvers import cg_solve, jacobi_preconditioner
 
 # 1. Mesh: a bundled Exodus file, or a generated box.
 mesh = (

@@ -24,10 +24,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import coo_to_csr
+from domain_decomposed_pde_solver.parallel import (
     ShardedOperator,
     build_halo_plan,
     build_slab_plan,

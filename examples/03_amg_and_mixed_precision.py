@@ -1,6 +1,6 @@
 """AMG preconditioning and mixed-precision refinement.
 
-Shows the two levers that make large solves fast on TPU:
+Shows the two levers that make large solves fast:
   - SA-AMG: h-independent iteration counts (~10 regardless of mesh size);
   - iterative refinement: f64-accurate answers from an f32 device solver.
 
@@ -15,10 +15,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, pad_vector
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.io import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator, pad_vector
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     iterative_refinement_solve,
     jacobi_preconditioner,

@@ -14,13 +14,13 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import ExodusSolutionWriter, box_mesh
-from domain_decomposed_pde_solver_tpu.models import (
+from domain_decomposed_pde_solver.io import ExodusSolutionWriter, box_mesh
+from domain_decomposed_pde_solver.models import (
     assemble_heat_system,
     transient_heat_solve,
 )
-from domain_decomposed_pde_solver_tpu.ops import choose_operator
-from domain_decomposed_pde_solver_tpu.solvers import lanczos_extremes
+from domain_decomposed_pde_solver.ops import choose_operator
+from domain_decomposed_pde_solver.solvers import lanczos_extremes
 
 mesh = box_mesh(12, 12, 12, elem_type="TETRA4")
 system = assemble_heat_system(mesh)

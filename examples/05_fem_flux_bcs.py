@@ -17,16 +17,16 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh
-from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet, SideSet
-from domain_decomposed_pde_solver_tpu.io.sides import side_local_nodes
-from domain_decomposed_pde_solver_tpu.models import assemble_poisson_fem
-from domain_decomposed_pde_solver_tpu.ops import (
+from domain_decomposed_pde_solver.io import box_mesh
+from domain_decomposed_pde_solver.io.mesh import NodeSet, SideSet
+from domain_decomposed_pde_solver.io.sides import side_local_nodes
+from domain_decomposed_pde_solver.models import assemble_poisson_fem
+from domain_decomposed_pde_solver.ops import (
     choose_operator,
     pad_vector,
     unpad_vector,
 )
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     smoothed_aggregation_setup,
 )

@@ -25,12 +25,12 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator
-from domain_decomposed_pde_solver_tpu.parallel import build_slab_amg, slab_amg_cg_solve
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+from domain_decomposed_pde_solver.io import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator
+from domain_decomposed_pde_solver.parallel import build_slab_amg, slab_amg_cg_solve
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.amg import (
     infer_free_grid,
     smoothed_aggregation_setup,
 )

@@ -1,4 +1,4 @@
-// Native host-side mesh/graph kernels for the TPU PDE framework.
+// Native host-side mesh/graph kernels for the PDE framework.
 //
 // The reference implements its entire host pipeline in C++ (ExodusIO.hpp's
 // adjacency construction :317-386, dual-graph partitioning input :880-918,
@@ -632,7 +632,7 @@ int64_t aggregate_greedy(const int64_t* indptr, const int64_t* indices,
 
 // ---------------------------------------------------------------------------
 // Reverse Cuthill-McKee ordering — bandwidth reduction for SpMV locality
-// (improves ELL gather locality on TPU; no analogue in the reference, which
+// (improves ELL gather locality; no analogue in the reference, which
 // relies on ParMETIS for locality).
 // perm[out]: new position -> old index.
 // ---------------------------------------------------------------------------
@@ -714,7 +714,7 @@ void pack_ell_f64(const int64_t* indptr, const int64_t* indices,
 // ILU(0): incomplete LU factorization with zero fill-in, in place on the CSR
 // value array (columns must be sorted within rows; pattern unchanged).
 //
-// The TPU-native analogue of the Ifpack2 ILUT setup the reference uses as
+// The host analogue of the Ifpack2 ILUT setup the reference uses as
 // its production preconditioner (BelosMueLuSolver.cpp:92-97) — level 0
 // instead of thresholded fill, which is the standard parity baseline.
 // IKJ ordering with a per-row position map: O(sum_i deg_i^2 / 2).
@@ -1027,102 +1027,6 @@ int64_t rap_galerkin(const int64_t* Ap, const int64_t* Ai, const double* Ax,
 }
 
 // ---------------------------------------------------------------------------
-// BSG micro-op assignment (ops/bsg.py::bsg_from_csr hot loop, native).
-//
-// Entries (rows, cols) are in the internal (RCM-permuted) numbering, sorted
-// by (row, col).  Within one micro-op of a (tile, window-bin) group, each
-// output row and each source (sublane, lane) pair may appear at most once —
-// the exactness condition of the two-level shuffle.  First-fit greedy
-// coloring with 256-round bitmasks; then dense per-tile micro-op ids from
-// the (bin, round) keys in order of appearance.
-// mo_index[out]: dense micro-op id per entry.  Returns max micro-ops over
-// tiles (the padded MO dimension), or -1 if any group needs > 256 rounds.
-// ---------------------------------------------------------------------------
-int64_t bsg_assign(const int64_t* rows, const int64_t* cols, int64_t nnz,
-                   int64_t tile, int64_t subl, int64_t lanes,
-                   int64_t* mo_index /* out, nnz */) {
-  const int64_t win = subl * lanes;  // rows of x covered by one window bin
-  struct Mask {
-    uint64_t w[4] = {0, 0, 0, 0};
-  };
-  auto first_free = [](const Mask& a, const Mask& b) -> int64_t {
-    for (int k = 0; k < 4; ++k) {
-      const uint64_t used = a.w[k] | b.w[k];
-      if (used != ~0ull) {
-        return k * 64 + __builtin_ctzll(~used);
-      }
-    }
-    return -1;
-  };
-  auto set_bit = [](Mask& m, int64_t r) { m.w[r >> 6] |= 1ull << (r & 63); };
-
-  std::vector<int64_t> order(nnz);
-  std::vector<int64_t> rounds(nnz);
-  int64_t max_mo = 0;
-  int64_t e = 0;
-  while (e < nnz) {
-    // One tile: contiguous because entries are row-sorted.
-    const int64_t t = rows[e] / tile;
-    int64_t e_end = e;
-    while (e_end < nnz && rows[e_end] / tile == t) ++e_end;
-    const int64_t cnt = e_end - e;
-    // Sort tile entries by (bin, original order) so each (t, bin) group is
-    // contiguous; original order within keeps column locality.
-    order.resize(cnt);
-    for (int64_t i = 0; i < cnt; ++i) order[i] = e + i;
-    std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
-      return cols[a] / win < cols[b] / win;
-    });
-    // Greedy rounds per (bin) group.
-    std::vector<Mask> row_mask(tile), src_mask(win);
-    std::vector<int64_t> touched_rows, touched_src;
-    int64_t gi = 0;
-    while (gi < cnt) {
-      const int64_t bin = cols[order[gi]] / win;
-      int64_t gj = gi;
-      touched_rows.clear();
-      touched_src.clear();
-      while (gj < cnt && cols[order[gj]] / win == bin) {
-        const int64_t ee = order[gj];
-        const int64_t rloc = rows[ee] % tile;
-        const int64_t a = (rows[ee] % tile) / lanes;
-        const int64_t src = a * lanes + cols[ee] % lanes;
-        const int64_t r = first_free(row_mask[rloc], src_mask[src]);
-        if (r < 0) return -1;
-        set_bit(row_mask[rloc], r);
-        set_bit(src_mask[src], r);
-        touched_rows.push_back(rloc);
-        touched_src.push_back(src);
-        rounds[ee] = r;
-        ++gj;
-      }
-      for (int64_t rr : touched_rows) row_mask[rr] = Mask();
-      for (int64_t ss : touched_src) src_mask[ss] = Mask();
-      gi = gj;
-    }
-    // Dense micro-op ids from (bin, round) in order of appearance.
-    std::unordered_map<int64_t, int64_t> dense;
-    dense.reserve(cnt);
-    for (int64_t i = 0; i < cnt; ++i) {
-      const int64_t ee = order[i];
-      const int64_t key = (cols[ee] / win) * 256 + rounds[ee];
-      auto it = dense.find(key);
-      int64_t id;
-      if (it == dense.end()) {
-        id = static_cast<int64_t>(dense.size());
-        dense.emplace(key, id);
-      } else {
-        id = it->second;
-      }
-      mo_index[ee] = id;
-    }
-    max_mo = std::max(max_mo, static_cast<int64_t>(dense.size()));
-    e = e_end;
-  }
-  return max_mo < 1 ? 1 : max_mo;
-}
-
-// ---------------------------------------------------------------------------
 // Lattice-stencil verification + correction extraction on the packed DIA
 // array: checks data[d][i] == pats[cls(i)][d] * in_range(i, tap d) exactly
 // (off-diagonals), fills corr[i] = data[diag][i] - pats[cls(i)][diag], and
@@ -1328,36 +1232,7 @@ void assemble_structured(int64_t mx, int64_t my, int64_t mz, int64_t p,
   }
 }
 
-// ---------------------------------------------------------------------------
-// BSG canonical entry order (ops/bsg.py::bsg_from_csr): given a CSR and a
-// symmetric permutation perm (original id -> internal id), compute `order`
-// (nnz entry indices into the CSR's flat arrays) such that the sequence
-// (perm[row[e]], perm[col[e]]) for e in order is lexicographically sorted.
-// Bucket entries by new row using the permuted row lengths (O(nnz)), then
-// sort each row's entries by new column (O(nnz log K), K ~ row width) —
-// replacing np.lexsort over two nnz-sized int64 keys, the largest single
-// cost of the Python packer at multi-M nnz.
-// ---------------------------------------------------------------------------
 }  // extern "C"  (templates cannot carry C linkage)
-
-template <typename I>
-static void bsg_canonical_order_t(const int64_t* indptr, const I* indices,
-                                  const int64_t* perm, int64_t n,
-                                  int64_t* order /* out nnz */) {
-  std::vector<int64_t> off(n + 1, 0);
-  for (int64_t i = 0; i < n; ++i)
-    off[perm[i] + 1] = indptr[i + 1] - indptr[i];
-  for (int64_t r = 0; r < n; ++r) off[r + 1] += off[r];
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t p = off[perm[i]];
-    for (int64_t k = indptr[i]; k < indptr[i + 1]; ++k) order[p++] = k;
-  }
-  for (int64_t r = 0; r < n; ++r) {
-    std::sort(order + off[r], order + off[r + 1], [&](int64_t a, int64_t b) {
-      return perm[indices[a]] < perm[indices[b]];
-    });
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Strength-filtered greedy aggregation straight off the raw CSR
@@ -1432,50 +1307,6 @@ int64_t aggregate_greedy_filtered_i32(const int64_t* indptr,
                                       double theta, int64_t n, int64_t* agg) {
   return aggregate_greedy_filtered_t<int32_t>(indptr, indices, data, diag,
                                               theta, n, agg);
-}
-
-void bsg_canonical_order(const int64_t* indptr, const int64_t* indices,
-                         const int64_t* perm, int64_t n, int64_t* order) {
-  bsg_canonical_order_t<int64_t>(indptr, indices, perm, n, order);
-}
-
-void bsg_canonical_order_i32(const int64_t* indptr, const int32_t* indices,
-                             const int64_t* perm, int64_t n, int64_t* order) {
-  bsg_canonical_order_t<int32_t>(indptr, indices, perm, n, order);
-}
-
-// ---------------------------------------------------------------------------
-// BSG array fill (ops/bsg.py::bsg_from_csr): one pass over the canonically
-// sorted (rows, cols, data) entries with their bsg_assign micro-op ids,
-// writing w0 (n_tiles, max_mo) i32, qq/rm (n_tiles, max_mo, subl, lanes)
-// i8, vals (same shape) f32 and diag (n_pad) f32.  Output arrays must be
-// zero-initialized by the caller.  Replaces four nnz-sized NumPy fancy
-// scatters plus six nnz-sized divmod temporaries (~9 s at 6M nnz on this
-// 1-core host).
-// ---------------------------------------------------------------------------
-void bsg_fill(const int64_t* rows, const int64_t* cols, const double* data,
-              const int64_t* mo_index, int64_t nnz, int64_t tile,
-              int64_t win_rows, int64_t lanes, int64_t max_mo, int32_t* w0,
-              int8_t* qq, int8_t* rm, float* vals, float* diag) {
-  const int64_t subl = tile / lanes;
-  const int64_t slot = subl * lanes;
-  const int64_t win_elems = win_rows * lanes;
-  for (int64_t e = 0; e < nnz; ++e) {
-    const int64_t rr = rows[e], cc = cols[e];
-    const int64_t t = rr / tile;
-    const int64_t a = (rr % tile) / lanes;
-    const int64_t l = rr % lanes;
-    const int64_t g = cc / lanes;
-    const int64_t r = cc % lanes;
-    const int64_t b = cc / win_elems;
-    const int64_t base = t * max_mo + mo_index[e];
-    w0[base] = static_cast<int32_t>(b * win_rows);
-    const int64_t al = base * slot + a * lanes;
-    qq[al + r] = static_cast<int8_t>(g - b * win_rows);
-    rm[al + l] = static_cast<int8_t>(r);
-    vals[al + l] = static_cast<float>(data[e]);
-    if (rr == cc) diag[rr] = static_cast<float>(data[e]);
-  }
 }
 
 }  // extern "C"

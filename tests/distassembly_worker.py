@@ -30,7 +30,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from domain_decomposed_pde_solver_tpu.parallel.multihost import (
+    from domain_decomposed_pde_solver.parallel.multihost import (
         initialize_multihost,
     )
 
@@ -41,7 +41,7 @@ def main():
 
     import numpy as np
 
-    from domain_decomposed_pde_solver_tpu.parallel.distassembly import (
+    from domain_decomposed_pde_solver.parallel.distassembly import (
         assemble_heat_multihost,
     )
 
@@ -52,11 +52,11 @@ def main():
     if pid == 0:
         # Single-host reference: global assembly + global plan; this
         # rank's distributed blocks must be bit-identical slices of it.
-        from domain_decomposed_pde_solver_tpu.io import read_exodus
-        from domain_decomposed_pde_solver_tpu.models import (
+        from domain_decomposed_pde_solver.io import read_exodus
+        from domain_decomposed_pde_solver.models import (
             assemble_heat_system,
         )
-        from domain_decomposed_pde_solver_tpu.parallel.halo import (
+        from domain_decomposed_pde_solver.parallel.halo import (
             build_halo_plan,
         )
 
@@ -74,7 +74,7 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from domain_decomposed_pde_solver_tpu.parallel.sharded import (
+    from domain_decomposed_pde_solver.parallel.sharded import (
         AXIS,
         _local_spmv,
     )

@@ -22,7 +22,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from domain_decomposed_pde_solver_tpu.parallel.multihost import (
+    from domain_decomposed_pde_solver.parallel.multihost import (
         initialize_multihost,
         load_sharded_checkpoint,
         multihost_slab_cg_solve,
@@ -35,9 +35,9 @@ def main():
 
     import numpy as np
 
-    from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.parallel.slab import build_slab_plan
+    from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+    from domain_decomposed_pde_solver.models import assemble_heat_system
+    from domain_decomposed_pde_solver.parallel.slab import build_slab_plan
 
     # Every process reads the same mesh (the reference's model:
     # ``ExodusIO.hpp:88-100``); device data is placed per host.

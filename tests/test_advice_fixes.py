@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md).
+"""Regression tests for findings of earlier code reviews.
 
 Each test pins the fixed behavior:
 - degenerate elements (repeated node) must not corrupt the NumPy-fallback
@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, refine_uniform
-from domain_decomposed_pde_solver_tpu.io.mesh import ElemBlock, MeshModel, NodeSet
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import ell_from_csr, pad_vector
-from domain_decomposed_pde_solver_tpu.parallel import decompose_mesh
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve_resumable
+from domain_decomposed_pde_solver.io import box_mesh, refine_uniform
+from domain_decomposed_pde_solver.io.mesh import ElemBlock, MeshModel, NodeSet
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import ell_from_csr, pad_vector
+from domain_decomposed_pde_solver.parallel import decompose_mesh
+from domain_decomposed_pde_solver.solvers import cg_solve_resumable
 
 
 def _degenerate_mesh():
@@ -45,7 +45,7 @@ def _degenerate_mesh():
 def test_degenerate_element_numpy_fallback(monkeypatch):
     """The NumPy fallback must filter u==v self-edges exactly like the
     native kernel, so both backends assemble the identical matrix."""
-    from domain_decomposed_pde_solver_tpu.utils import native as native_mod
+    from domain_decomposed_pde_solver.utils import native as native_mod
 
     mesh = _degenerate_mesh()
     s_native = assemble_heat_system(mesh)
@@ -141,62 +141,17 @@ def test_resume_rejects_modified_operator(tmp_path):
 # ---- round-2 advisor findings ---------------------------------------------
 
 
-def test_bsg_fine_operator_with_grid_dims_uses_permuted_transfers():
-    """A BSG fine operator lives in a permuted vector space; passing a
-    matching ``grid_dims`` alongside it must NOT route setup into the
-    identity-layout BrickProlongator (round-2 ADVICE, medium) — the forced
-    permutation-composed transfers keep the whole hierarchy in the
-    operator's space."""
-    from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
-        infer_free_grid,
-        smoothed_aggregation_setup,
-    )
-
-    mesh = box_mesh(10, 10, 10, elem_type="TETRA4")
-    s = assemble_heat_system(mesh)
-    dims = infer_free_grid(mesh, s.free_to_node)
-    assert dims is not None and int(np.prod(dims)) == s.n_free
-    A = bsg_from_csr(s.A)  # RCM-permuted internal space
-    assert A.perm is not None
-    for factored in (True, False):
-        M = smoothed_aggregation_setup(
-            s.A,
-            dtype=jnp.float32,
-            fine_operator=A,
-            grid_dims=dims,
-            brick=3,
-            factored_transfers=factored,
-        )
-        b = A.put_vector(s.b.astype(np.float32))
-        bs = b / float(np.abs(s.b).max())
-        res = cg_solve(
-            A, bs, jnp.zeros_like(bs), precond=M, tol=1e-6, maxiter=60
-        )
-        assert bool(res.converged)
-        # An identity-layout preconditioner applied to permuted vectors is
-        # noise; the correct permuted hierarchy converges in a handful.
-        assert int(res.iterations) <= 20, int(res.iterations)
-        import scipy.sparse as sp
-
-        S = sp.csr_matrix((s.A.data, s.A.indices, s.A.indptr), shape=s.A.shape)
-        x = A.get_vector(res.x).astype(np.float64) * float(np.abs(s.b).max())
-        relres = np.linalg.norm(S @ x - s.b) / np.linalg.norm(s.b)
-        assert relres < 1e-5
-
-
 def test_slab_amg_f64_build_solves_in_f64():
     """build_slab_amg(dtype=float64) + slab_amg_cg_solve must run the solve
     in f64 (round-2 ADVICE: b/x0/lmax were hardcoded f32, silently
     downgrading the CLI's sharded --dtype float64 path)."""
     import jax
 
-    from domain_decomposed_pde_solver_tpu.parallel.slabamg import (
+    from domain_decomposed_pde_solver.parallel.slabamg import (
         build_slab_amg,
         slab_amg_cg_solve,
     )
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         infer_free_grid,
     )
 
@@ -220,51 +175,3 @@ def test_slab_amg_f64_build_solves_in_f64():
     assert relres < 1e-10, relres
 
 
-def test_bsg_sharded_mixed_bf16_exactness_uniform_storage(data_dir):
-    """If one part's local values are bf16-exact and another's are not,
-    BSGShardedOperator.from_plan must still stack (uniform storage decided
-    once on the global values — round-2 ADVICE)."""
-    import jax
-
-    from domain_decomposed_pde_solver_tpu.io import read_exodus
-    from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
-    from domain_decomposed_pde_solver_tpu.parallel import (
-        build_halo_plan,
-        make_device_mesh,
-        partition_graph,
-        sharded_cg_solve,
-    )
-    from domain_decomposed_pde_solver_tpu.parallel.sharded import (
-        BSGShardedOperator,
-    )
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs virtual devices")
-    mesh = read_exodus(str(data_dir / "brick.exo"))
-    s = assemble_heat_system(mesh)
-    A = s.A
-    rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
-    off = rows != A.indices
-    adj = coo_to_csr(
-        rows[off], A.indices[off], np.ones(int(off.sum())), A.shape,
-        sum_dups=False,
-    )
-    parts = partition_graph(adj, 4)
-    plan = build_halo_plan(A, parts, 4, dtype=np.float64)
-    # Make part 3's block non-bf16-exact while parts 0-2 stay exact
-    # (Laplacian integers): scale one existing diagonal entry by (1+2^-20).
-    p = 3
-    r = int(np.argmax(plan.row_valid[p]))
-    k = int(np.argmax(np.asarray(plan.ell_vals[p, r]) != 0))
-    plan.ell_vals[p, r, k] *= 1.0 + 2.0**-20
-    op = BSGShardedOperator.from_plan(plan, make_device_mesh(4))
-    assert op.bsg_stack.storage == "float32"
-    assert op.bsg_stack.vals.dtype == jnp.float32
-    # And the operator still solves its (perturbed) system correctly.
-    b_host = (s.b / np.abs(s.b).max()).astype(np.float32)
-    deg = np.where(s.degree > 0, s.degree, 1.0)
-    res = sharded_cg_solve(
-        op, op.put_vector(b_host), op.put_vector(np.zeros_like(b_host)),
-        precond_diag=op.put_vector(1.0 / deg), tol=1e-6, maxiter=500,
-    )
-    assert bool(res.converged)

@@ -4,16 +4,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import ell_from_csr, ell_spmv, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import ell_from_csr, ell_spmv, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     jacobi_preconditioner,
     smoothed_aggregation_setup,
 )
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import aggregate_greedy
+from domain_decomposed_pde_solver.solvers.precond.amg import aggregate_greedy
 
 
 def test_aggregation_covers_all_nodes(data_dir):
@@ -77,7 +77,7 @@ def test_amg_f32_preconditioner_f64_cg(data_dir):
     sys_ = assemble_heat_system(mesh)
     A = ell_from_csr(sys_.A, dtype=jnp.float64)
     b = pad_vector(sys_.b, A.n_pad)
-    from domain_decomposed_pde_solver_tpu.solvers.precond.wrappers import (
+    from domain_decomposed_pde_solver.solvers.precond.wrappers import (
         CastPreconditioner,
     )
 
@@ -94,7 +94,7 @@ def test_amg_f32_preconditioner_f64_cg(data_dir):
 def test_factored_transfers_match_explicit():
     """The factored P=(I-wD^-1A)T application must equal the explicit ELL
     P/R application to rounding error (same preconditioner, two encodings)."""
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         FactoredProlongator,
     )
 
@@ -126,9 +126,9 @@ def test_factored_transfers_match_explicit():
 
 def test_aggressive_coarsening_converges():
     """aggressive_levels composes two aggregation rounds on the finest
-    level: much smaller level 1 (the TPU gather-bound level), solution
+    level: much smaller level 1 (the gather-bound level), solution
     still correct to the CG tolerance."""
-    from domain_decomposed_pde_solver_tpu.ops import choose_operator
+    from domain_decomposed_pde_solver.ops import choose_operator
 
     mesh = box_mesh(14, 14, 14, elem_type="TETRA4")
     sys_ = assemble_heat_system(mesh)
@@ -162,8 +162,8 @@ def test_brick_transfers_on_structured_grid():
     the preconditioned solve must reach the direct solution."""
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops import choose_operator
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.ops import choose_operator
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         BrickProlongator,
         infer_free_grid,
     )
@@ -197,7 +197,7 @@ def test_brick_transfers_on_structured_grid():
 
 
 def test_infer_free_grid_rejects_unstructured(data_dir):
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         infer_free_grid,
     )
 
@@ -206,145 +206,3 @@ def test_infer_free_grid_rejects_unstructured(data_dir):
     assert infer_free_grid(mesh, sys_.free_to_node) is None
 
 
-def test_amg_bsg_fine_level_matches_identity_layout():
-    """smoothed_aggregation_setup(fine_operator=BSG) builds the V-cycle in
-    the BSG operator's permuted space; iteration counts must match the
-    identity-layout hierarchy (same algebra, different layout)."""
-    import jax.numpy as jnp
-    from domain_decomposed_pde_solver_tpu.io import read_exodus
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.ops import choose_operator
-    from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
-        smoothed_aggregation_setup,
-    )
-
-    mesh = read_exodus("/root/reference/data/brick.exo")
-    sy = assemble_heat_system(mesh)
-    bb = (sy.b / np.abs(sy.b).max()).astype(np.float32)
-
-    A_id = choose_operator(sy.A, dtype=jnp.float32)
-    M_id = smoothed_aggregation_setup(sy.A, dtype=jnp.float32)
-    b_id = A_id.put_vector(bb)
-    r_id = cg_solve(A_id, b_id, jnp.zeros_like(b_id), precond=M_id,
-                    tol=1e-6, maxiter=100)
-
-    B = bsg_from_csr(sy.A)
-    M_b = smoothed_aggregation_setup(sy.A, dtype=jnp.float32, fine_operator=B)
-    from domain_decomposed_pde_solver_tpu.ops.bsg import BSGMatrix
-
-    assert isinstance(M_b.levels[0].A, BSGMatrix)
-    b_b = B.put_vector(bb)
-    r_b = cg_solve(B, b_b, jnp.zeros_like(b_b), precond=M_b,
-                   tol=1e-6, maxiter=100)
-    assert bool(r_b.converged)
-    assert abs(int(r_b.iterations) - int(r_id.iterations)) <= 1
-    import scipy.sparse as sp
-
-    S = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr), shape=sy.A.shape)
-    x = B.get_vector(r_b.x).astype(np.float64)
-    assert np.linalg.norm(S @ x - bb) / np.linalg.norm(bb) < 1e-5
-
-
-def test_amg_bsg_mid_levels_match_ell_hierarchy():
-    """With bsg_level_min_rows forced tiny, every coarse level above it is
-    BSG-packed (host-RCM identity layout); the V-cycle is the same algebra
-    as the ELL hierarchy under a coarse relabeling, so CG iteration counts
-    must match within 1 and the solution must solve the system."""
-    import jax.numpy as jnp
-    from domain_decomposed_pde_solver_tpu.io import read_exodus
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.ops.bsg import BSGMatrix, bsg_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
-        smoothed_aggregation_setup,
-    )
-
-    mesh = read_exodus("/root/reference/data/brick.exo")
-    sy = assemble_heat_system(mesh)
-    bb = (sy.b / np.abs(sy.b).max()).astype(np.float32)
-
-    B = bsg_from_csr(sy.A)
-    M_ell = smoothed_aggregation_setup(
-        sy.A, dtype=jnp.float32, fine_operator=B, bsg_mid_levels=False
-    )
-    M_bsg = smoothed_aggregation_setup(
-        sy.A, dtype=jnp.float32, fine_operator=B, bsg_level_min_rows=20
-    )
-    assert len(M_bsg.levels) >= 2
-    assert isinstance(M_bsg.levels[1].A, BSGMatrix)
-    assert M_bsg.levels[1].A.perm is None  # identity internal space
-    # Same level sizes (the relabel is a bijection per level).
-    assert [lvl.n_rows for lvl in M_bsg.levels] == [
-        lvl.n_rows for lvl in M_ell.levels
-    ]
-
-    b_b = B.put_vector(bb)
-    r_ell = cg_solve(B, b_b, jnp.zeros_like(b_b), precond=M_ell,
-                     tol=1e-6, maxiter=100)
-    r_bsg = cg_solve(B, b_b, jnp.zeros_like(b_b), precond=M_bsg,
-                     tol=1e-6, maxiter=100)
-    assert bool(r_bsg.converged)
-    assert abs(int(r_bsg.iterations) - int(r_ell.iterations)) <= 1
-    import scipy.sparse as sp
-
-    S = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr), shape=sy.A.shape)
-    x = B.get_vector(r_bsg.x).astype(np.float64)
-    assert np.linalg.norm(S @ x - bb) / np.linalg.norm(bb) < 1e-5
-
-
-def test_amg_bsg_transfers_match_gather_transfers():
-    """With bsg_transfer_min_rows forced tiny, every BSG level's transfers
-    become rectangular BSG shuffle gathers (BSGTransferProlongator) under
-    the first-appearance coarse relabel.  Same algebra as the
-    take/segment_sum form up to f32 summation order in T^T, so CG
-    iteration counts must match within 2 and the solution must solve the
-    system."""
-    from domain_decomposed_pde_solver_tpu.ops.bsg import BSGMatrix, bsg_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
-        BSGTransferProlongator,
-    )
-
-    mesh = read_exodus("/root/reference/data/brick.exo")
-    sy = assemble_heat_system(mesh)
-    bb = (sy.b / np.abs(sy.b).max()).astype(np.float32)
-
-    B = bsg_from_csr(sy.A)
-    M_gather = smoothed_aggregation_setup(
-        sy.A, dtype=jnp.float32, fine_operator=B, bsg_level_min_rows=20,
-        bsg_transfers=False,
-    )
-    M_tx = smoothed_aggregation_setup(
-        sy.A, dtype=jnp.float32, fine_operator=B, bsg_level_min_rows=20,
-        bsg_transfer_min_rows=20,
-    )
-    assert isinstance(M_tx.levels[0].P, BSGTransferProlongator)
-    assert isinstance(M_tx.levels[1].A, BSGMatrix)
-    assert isinstance(M_tx.levels[1].P, BSGTransferProlongator)
-    # Direct operator equivalence on the finest level: P/R applied to a
-    # random vector must match the gather/segment_sum forms (the two
-    # hierarchies share aggregates per level only at level 0, where the
-    # coarse relabels also agree... they don't — so compare P@x through
-    # each hierarchy's own coarse labeling via round trips instead):
-    # R(P(x_c)) is label-invariant for matching aggregate partitions.
-    rng = np.random.default_rng(0)
-    x_f = jnp.asarray(rng.normal(size=B.n_pad).astype(np.float32))
-    y_g = M_gather.levels[0].P.matvec(M_gather.levels[0].R.matvec(x_f))
-    y_t = M_tx.levels[0].P.matvec(M_tx.levels[0].R.matvec(x_f))
-    np.testing.assert_allclose(
-        np.asarray(y_g), np.asarray(y_t), rtol=2e-4, atol=2e-5
-    )
-
-    b_b = B.put_vector(bb)
-    r_g = cg_solve(B, b_b, jnp.zeros_like(b_b), precond=M_gather,
-                   tol=1e-6, maxiter=100)
-    r_t = cg_solve(B, b_b, jnp.zeros_like(b_b), precond=M_tx,
-                   tol=1e-6, maxiter=100)
-    assert bool(r_t.converged)
-    assert abs(int(r_t.iterations) - int(r_g.iterations)) <= 2
-    import scipy.sparse as sp
-
-    S = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr), shape=sy.A.shape)
-    x = B.get_vector(r_t.x).astype(np.float64)
-    assert np.linalg.norm(S @ x - bb) / np.linalg.norm(bb) < 1e-5

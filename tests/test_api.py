@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.api import SteadyHeatSolver
-from domain_decomposed_pde_solver_tpu.io import read_nodal_vars
+from domain_decomposed_pde_solver.api import SteadyHeatSolver
+from domain_decomposed_pde_solver.io import read_nodal_vars
 
 
 @pytest.fixture(scope="module")
@@ -41,9 +41,10 @@ def test_bc_override_solves_new_problem(solver):
 
 
 def test_warm_start_cuts_iterations(solver):
-    _, res_cold = solver.solve(bc={2: 100.0}, tol=1e-11, warm_start=False)
+    sid = solver.mesh.node_sets[0].id
+    _, res_cold = solver.solve(bc={sid: 100.0}, tol=1e-11, warm_start=False)
     # Tiny perturbation of the BC: warm start should converge much faster.
-    _, res_warm = solver.solve(bc={2: 100.001}, tol=1e-11, warm_start=True)
+    _, res_warm = solver.solve(bc={sid: 100.001}, tol=1e-11, warm_start=True)
     assert int(res_warm.iterations) < int(res_cold.iterations)
 
 
@@ -53,9 +54,10 @@ def test_rhs_for_matches_assembly(solver):
 
 
 def test_write_solution_roundtrip(solver, tmp_path):
-    u, _ = solver.solve(bc={2: 7.0}, tol=1e-10)
+    sid = solver.mesh.node_sets[0].id
+    u, _ = solver.solve(bc={sid: 7.0}, tol=1e-10)
     out = str(tmp_path / "api_sol.exo")
-    solver.write_solution(out, u, bc={2: 7.0}, timestep=3)
+    solver.write_solution(out, u, bc={sid: 7.0}, timestep=3)
     names, times, vals = read_nodal_vars(out)
     assert names == ["Steady-State Heat Solution"]
     # Boundary nodes carry the overridden temperature.

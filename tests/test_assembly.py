@@ -10,8 +10,8 @@ RHS.  Agreement on every bundled mesh is the parity evidence.
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import (
     assemble_full_laplacian,
     assemble_heat_system,
 )
@@ -122,7 +122,7 @@ def test_native_assembly_bit_identical_to_numpy(data_dir, name, monkeypatch):
     """The native single-scan assembly (ddps_native.cpp::assemble_reduced)
     must reproduce the vectorized NumPy path bit-for-bit: CSR structure,
     values, RHS, degree, and the boundary-edge lists."""
-    import domain_decomposed_pde_solver_tpu.models.heat as heat
+    import domain_decomposed_pde_solver.models.heat as heat
 
     mesh = read_exodus(str(data_dir / name))
     s_nat = heat.assemble_heat_system(mesh)

@@ -1,7 +1,7 @@
 """Bit-reproducibility tests.
 
 The reference enforces determinism structurally (barriers + timestamp
-merges) so multi-rank dumps can be diffed (SURVEY §4).  The TPU framework
+merges) so multi-rank dumps can be diffed (SURVEY §4).  This framework
 makes the stronger guarantee testable: identical inputs produce bit-identical
 outputs — assembly, partitioning, and whole solves, single- and multi-device.
 """
@@ -9,17 +9,17 @@ outputs — assembly, partitioning, and whole solves, single- and multi-device.
 import jax.numpy as jnp
 import numpy as np
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import coo_to_csr, ell_from_csr, pad_vector
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import coo_to_csr, ell_from_csr, pad_vector
+from domain_decomposed_pde_solver.parallel import (
     ShardedOperator,
     build_halo_plan,
     make_device_mesh,
     partition_graph,
     sharded_cg_solve,
 )
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve, jacobi_preconditioner
+from domain_decomposed_pde_solver.solvers import cg_solve, jacobi_preconditioner
 
 
 def test_assembly_bitwise_deterministic(data_dir):

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import (
     DIAMatrix,
     ELLMatrix,
     choose_operator,
@@ -15,8 +15,8 @@ from domain_decomposed_pde_solver_tpu.ops import (
     pad_vector,
     unpad_vector,
 )
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.jacobi import (
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.jacobi import (
     DiagonalPreconditioner,
 )
 
@@ -45,7 +45,7 @@ def test_dia_diagonal_padded():
 
 
 def test_choose_operator_selects_by_structure(data_dir):
-    from domain_decomposed_pde_solver_tpu.ops import SplitELLMatrix
+    from domain_decomposed_pde_solver.ops import SplitELLMatrix
 
     box = assemble_heat_system(box_mesh(10, 10, 10, elem_type="TETRA4"))
     assert isinstance(choose_operator(box.A), DIAMatrix)
@@ -83,7 +83,7 @@ def test_operator_bytes_sane():
     mesh = box_mesh(6, 6, 6, elem_type="TETRA4")
     sys_ = assemble_heat_system(mesh)
     dia = dia_from_csr(sys_.A, dtype=jnp.float32)
-    from domain_decomposed_pde_solver_tpu.ops import ell_from_csr
+    from domain_decomposed_pde_solver.ops import ell_from_csr
 
     ell = ell_from_csr(sys_.A, dtype=jnp.float32)
     # DIA payload must be smaller than ELL's (no index storage).

@@ -13,22 +13,25 @@ import pytest
 
 import jax.numpy as jnp
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.io.exodus import write_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.parallel.distassembly import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.io.exodus import write_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.parallel.distassembly import (
     assemble_heat_distributed,
     dist_local_phase,
 )
-from domain_decomposed_pde_solver_tpu.parallel.halo import build_halo_plan
-from domain_decomposed_pde_solver_tpu.parallel.sharded import (
+from domain_decomposed_pde_solver.parallel.halo import build_halo_plan
+from domain_decomposed_pde_solver.parallel.sharded import (
     ShardedOperator,
     make_device_mesh,
     sharded_cg_solve,
 )
 
-TET_CUBE = "/root/reference/data/tet-cube-heat.exo"
+
+@pytest.fixture(scope="module")
+def tet_cube(data_dir):
+    return str(data_dir / "tet-cube-heat.exo")
 
 
 def _box_path(tmp_path, nx=6, ny=5, nz=4, elem_type="HEX8"):
@@ -39,10 +42,10 @@ def _box_path(tmp_path, nx=6, ny=5, nz=4, elem_type="HEX8"):
 
 
 @pytest.mark.parametrize("nranks,nparts", [(2, 2), (2, 4), (4, 4), (3, 3)])
-def test_plan_parity_tet_cube(nranks, nparts):
-    plan_d, b_d, state = assemble_heat_distributed(TET_CUBE, nranks, nparts)
+def test_plan_parity_tet_cube(nranks, nparts, tet_cube):
+    plan_d, b_d, state = assemble_heat_distributed(tet_cube, nranks, nparts)
 
-    mesh = read_exodus(TET_CUBE)
+    mesh = read_exodus(tet_cube)
     sys_ = assemble_heat_system(mesh)
     # Same deterministic partition the distributed path derived.
     plan_g = build_halo_plan(sys_.A, state.owner_free, nparts)
@@ -85,17 +88,17 @@ def test_plan_parity_box_tet(tmp_path):
     np.testing.assert_allclose(b_d, sys_.b, rtol=0, atol=0)
 
 
-def test_slice_union_covers_global_edges():
+def test_slice_union_covers_global_edges(tet_cube):
     """Per-slice unique edges union to the global unique edge set (the
     dedup-at-owner premise)."""
-    from domain_decomposed_pde_solver_tpu.models.heat import (
+    from domain_decomposed_pde_solver.models.heat import (
         unique_element_edges,
     )
 
-    mesh = read_exodus(TET_CUBE)
+    mesh = read_exodus(tet_cube)
     gu, gv = unique_element_edges(mesh)
     gkeys = gu * np.int64(mesh.num_nodes) + gv
-    states = [dist_local_phase(TET_CUBE, r, 3, 3) for r in range(3)]
+    states = [dist_local_phase(tet_cube, r, 3, 3) for r in range(3)]
     # Reconstruct the union of exchanged keys (sources are free rows only).
     free_src = ~mesh.boundary_value_per_node()[0][gu]
     n2f = states[0].node_to_free
@@ -108,10 +111,10 @@ def test_slice_union_covers_global_edges():
     np.testing.assert_array_equal(got, expect)
 
 
-def test_distributed_solve_end_to_end():
+def test_distributed_solve_end_to_end(tet_cube):
     """Sharded CG on the distributed-assembled operator reaches the same
     solution as the dense solve — no global CSR ever built."""
-    plan, b, state = assemble_heat_distributed(TET_CUBE, 4, 4)
+    plan, b, state = assemble_heat_distributed(tet_cube, 4, 4)
     mesh = make_device_mesh(4)
     op = ShardedOperator.from_plan(plan, mesh)
     b_s = op.put_vector(b)
@@ -132,7 +135,7 @@ def test_distributed_solve_end_to_end():
     res = sharded_cg_solve(op, b_s, x0, precond_diag=dinv, tol=1e-10, maxiter=600)
     x = op.get_vector(res.x)
 
-    mesh_m = read_exodus(TET_CUBE)
+    mesh_m = read_exodus(tet_cube)
     sys_ = assemble_heat_system(mesh_m)
     r = sys_.A.to_scipy() @ x - sys_.b
     assert np.linalg.norm(r) / np.linalg.norm(sys_.b) < 1e-8

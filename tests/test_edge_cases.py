@@ -4,15 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import (
     coo_to_csr,
     ell_from_csr,
     pad_vector,
     unpad_vector,
 )
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     cg_solve_with_state,
     gmres_solve,
@@ -64,7 +64,7 @@ def test_cg_state_chunks_match_continuous(system):
 
 def test_one_dof_system():
     """A 1-DOF reduced system (everything else Dirichlet) must solve."""
-    from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
     import dataclasses
 
     mesh = box_mesh(2, 2, 2, elem_type="TETRA4")
@@ -85,7 +85,7 @@ def test_one_dof_system():
 
 
 def test_hyb_max_diags_cap(data_dir):
-    from domain_decomposed_pde_solver_tpu.ops.hyb import hyb_from_csr, rcm_permute
+    from domain_decomposed_pde_solver.ops.hyb import hyb_from_csr, rcm_permute
 
     sys_ = assemble_heat_system(read_exodus(str(data_dir / "brick.exo")))
     Ap, _ = rcm_permute(sys_.A)
@@ -98,7 +98,7 @@ def test_hyb_max_diags_cap(data_dir):
 
 def test_slab_odd_sizes():
     """Slab plan with n not divisible by P and odd padding."""
-    from domain_decomposed_pde_solver_tpu.parallel import (
+    from domain_decomposed_pde_solver.parallel import (
         build_slab_plan,
         slab_cg_solve,
     )

@@ -1,10 +1,10 @@
-"""Exodus-II reader/writer tests against the bundled reference meshes."""
+"""Exodus-II reader/writer tests against the generated reference meshes."""
 
 import numpy as np
 import pytest
 from scipy.io import netcdf_file
 
-from domain_decomposed_pde_solver_tpu.io import (
+from domain_decomposed_pde_solver.io import (
     ExodusSolutionWriter,
     read_exodus,
     read_nodal_vars,
@@ -87,7 +87,7 @@ def test_boundary_tiebreaks(data_dir):
     """Smallest nodeset id feeds the RHS; largest wins the timestep-0 write."""
     mesh = read_exodus(str(data_dir / "rectangle-tris-boundary.exo"))
     # Inject an overlapping nodeset artificially.
-    from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
 
     mesh.node_sets.append(NodeSet(id=7, nodes=np.array([4])))
     is_b, bval = mesh.boundary_value_per_node()
@@ -96,23 +96,20 @@ def test_boundary_tiebreaks(data_dir):
     assert wvals[4] == 50.0  # max id: write tie-break (ExodusIO.hpp:1979-1989)
 
 
-ALL_INPUT_MESHES = [
-    "lbracket_2d.exo", "mitchell_tri.exo", "tet-cube.exo", "beam.exo",
-    "arch.exo", "bolted_bracket.exo", "tm2.exo", "input_mesh.exo",
-    "design_vol.exo", "initialguess.exo", "InternalEnergyGradX.exo",
-]
-
-
-@pytest.mark.parametrize("name", ALL_INPUT_MESHES)
+@pytest.mark.parametrize("name", MESHES)
 def test_every_input_mesh_reads_and_assembles(data_dir, name):
-    """Coverage sweep: every bundled input mesh must read, validate, and
+    """Coverage sweep: every generated input mesh must read, validate, and
     assemble (matching the reference's any-mesh robustness; meshes without
     nodesets produce a full-DOF system with zero RHS)."""
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
+    import warnings
+
+    from domain_decomposed_pde_solver.models import assemble_heat_system
 
     mesh = read_exodus(str(data_dir / name))
     mesh.validate()
-    sys_ = assemble_heat_system(mesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # nodeset-free mesh: singular
+        sys_ = assemble_heat_system(mesh)
     assert sys_.A.n_rows == sys_.n_free
     assert np.isfinite(sys_.b).all()
     if mesh.node_sets:
@@ -123,11 +120,19 @@ def test_every_input_mesh_reads_and_assembles(data_dir, name):
         assert not sys_.b.any()
 
 
-def test_multiblock_multinodeset_mesh(data_dir):
-    """tm2.exo: 2 TETRA blocks + 4 nodesets — the richest bundled fixture."""
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
+def test_multiblock_multinodeset_mesh(data_dir, tmp_path):
+    """2blocks.exo plus two overlapping nodesets: 2 TETRA blocks + 4
+    nodesets, written and read back, assembles to a symmetric, diagonally
+    dominant system."""
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.models import assemble_heat_system
 
-    mesh = read_exodus(str(data_dir / "tm2.exo"))
+    mesh = read_exodus(str(data_dir / "2blocks.exo"))
+    low_y = np.flatnonzero(mesh.coords[:, 1] == 0.0)
+    high_z = np.flatnonzero(mesh.coords[:, 2] == 1.0)
+    mesh.node_sets += [NodeSet(id=300, nodes=low_y), NodeSet(id=500, nodes=high_z)]
+    write_exodus(str(tmp_path / "tm.exo"), mesh)
+    mesh = read_exodus(str(tmp_path / "tm.exo"))
     assert len(mesh.blocks) == 2 and len(mesh.node_sets) == 4
     sys_ = assemble_heat_system(mesh)
     S = sys_.A.to_scipy()
@@ -143,7 +148,7 @@ class TestCorruptFiles:
     stays FileNotFoundError."""
 
     def _good_bytes(self, tmp_path):
-        from domain_decomposed_pde_solver_tpu.io import box_mesh, write_exodus
+        from domain_decomposed_pde_solver.io import box_mesh, write_exodus
 
         p = tmp_path / "good.exo"
         write_exodus(str(p), box_mesh(4, 4, 4, elem_type="TETRA4"))
@@ -162,7 +167,7 @@ class TestCorruptFiles:
              "bad-magic"],
     )
     def test_corrupt_raises_exodus_read_error(self, tmp_path, mangle):
-        from domain_decomposed_pde_solver_tpu.io import (
+        from domain_decomposed_pde_solver.io import (
             ExodusReadError,
             read_exodus,
         )
@@ -174,7 +179,7 @@ class TestCorruptFiles:
         assert "bad.exo" in str(exc.value)
 
     def test_missing_file_raises_file_not_found(self, tmp_path):
-        from domain_decomposed_pde_solver_tpu.io import read_exodus
+        from domain_decomposed_pde_solver.io import read_exodus
 
         with pytest.raises(FileNotFoundError):
             read_exodus(str(tmp_path / "missing.exo"))
@@ -182,8 +187,8 @@ class TestCorruptFiles:
     def test_nodeset_free_mesh_warns_singular(self):
         import warnings
 
-        from domain_decomposed_pde_solver_tpu.io import box_mesh
-        from domain_decomposed_pde_solver_tpu.models import (
+        from domain_decomposed_pde_solver.io import box_mesh
+        from domain_decomposed_pde_solver.models import (
             assemble_heat_system,
         )
 
@@ -195,15 +200,15 @@ class TestCorruptFiles:
         assert any("singular" in str(x.message) for x in w)
 
 
-def test_read_exodus_partial_covers_full_mesh():
+def test_read_exodus_partial_covers_full_mesh(data_dir):
     """Union of all parts' element slices == the full mesh; node ids and
     coordinates of every referenced node match the full read."""
-    from domain_decomposed_pde_solver_tpu.io import (
+    from domain_decomposed_pde_solver.io import (
         read_exodus,
         read_exodus_partial,
     )
 
-    path = "/root/reference/data/tet-cube-heat.exo"
+    path = str(data_dir / "tet-cube-heat.exo")
     full = read_exodus(path)
     all_conn = np.concatenate([b.conn for b in full.blocks])
     nparts = 4
@@ -222,14 +227,14 @@ def test_read_exodus_partial_covers_full_mesh():
     np.testing.assert_array_equal(np.concatenate(got), all_conn)
 
 
-def test_read_exodus_partial_multiblock():
+def test_read_exodus_partial_multiblock(data_dir):
     """Element slicing crosses block boundaries correctly (2blocks.exo)."""
-    from domain_decomposed_pde_solver_tpu.io import (
+    from domain_decomposed_pde_solver.io import (
         read_exodus,
         read_exodus_partial,
     )
 
-    path = "/root/reference/data/2blocks.exo"
+    path = str(data_dir / "2blocks.exo")
     full = read_exodus(path)
     all_conn = np.concatenate([b.conn for b in full.blocks])
     parts = [read_exodus_partial(path, p, 3) for p in range(3)]

@@ -13,30 +13,27 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, coo_to_csr
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator, coo_to_csr
+from domain_decomposed_pde_solver.parallel import (
     ShardedOperator,
     build_halo_plan,
     make_device_mesh,
     partition_graph,
 )
-from domain_decomposed_pde_solver_tpu.parallel.haloamg import (
+from domain_decomposed_pde_solver.parallel.haloamg import (
     build_halo_amg,
     halo_amg_cg_solve,
 )
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.amg import (
     smoothed_aggregation_setup,
 )
 
-DATA = pathlib.Path("/root/reference/data")
-
-
 @pytest.fixture(scope="module")
-def brick():
-    mesh = read_exodus(DATA / "brick.exo")
+def brick(data_dir):
+    mesh = read_exodus(data_dir / "brick.exo")
     sy = assemble_heat_system(mesh)
     A = sy.A
     rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
@@ -79,26 +76,3 @@ def test_unstructured_iterations_match_single_device(brick, nparts):
     assert relres < 1e-5
 
 
-def test_works_over_bsg_sharded_operator(brick):
-    """The same hierarchy preconditions CG whose local SpMV is the BSG
-    shuffle-gather kernel."""
-    from domain_decomposed_pde_solver_tpu.parallel.sharded import (
-        BSGShardedOperator,
-    )
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs virtual devices")
-    mesh, sy, adj = brick
-    parts = partition_graph(adj, 4, coords=mesh.coords[sy.free_to_node])
-    plan = build_halo_plan(sy.A, parts, 4, dtype=np.float32)
-    op = BSGShardedOperator.from_plan(plan, make_device_mesh(4))
-    hamg = build_halo_amg(sy.A, plan)
-    bb = (sy.b / np.abs(sy.b).max()).astype(np.float32)
-    x, res = halo_amg_cg_solve(op, hamg, bb, np.zeros_like(bb),
-                               tol=1e-6, maxiter=100)
-    assert bool(res.converged)
-    import scipy.sparse as sp
-
-    S = sp.csr_matrix((sy.A.data, sy.A.indices, sy.A.indptr), shape=sy.A.shape)
-    relres = np.linalg.norm(S @ x.astype(np.float64) - bb) / np.linalg.norm(bb)
-    assert relres < 1e-5

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.ops.hyb import hyb_from_csr, rcm_permute
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.jacobi import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import pad_vector, unpad_vector
+from domain_decomposed_pde_solver.ops.hyb import hyb_from_csr, rcm_permute
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.jacobi import (
     DiagonalPreconditioner,
 )
 

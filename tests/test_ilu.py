@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from domain_decomposed_pde_solver_tpu.ops.csr import CSRMatrix
-from domain_decomposed_pde_solver_tpu.ops.ell import pad_to, pad_vector
-from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import (
+from domain_decomposed_pde_solver.ops.csr import CSRMatrix
+from domain_decomposed_pde_solver.ops.ell import pad_to, pad_vector
+from domain_decomposed_pde_solver.solvers.precond.ilu import (
     ilu0_factor,
     ilu0_preconditioner,
 )
@@ -64,7 +64,7 @@ def _lu_dense(S, lu, diag_pos):
 def test_ilu0_pattern_property(use_native, monkeypatch):
     if not use_native:
         monkeypatch.setenv("DDPS_NO_NATIVE", "1")
-        import domain_decomposed_pde_solver_tpu.utils.native as nat
+        import domain_decomposed_pde_solver.utils.native as nat
 
         monkeypatch.setattr(nat, "_tried", False)
         monkeypatch.setattr(nat, "_lib", None)
@@ -84,7 +84,7 @@ def test_ilu0_native_matches_fallback(monkeypatch):
     lu_n, dp_n = ilu0_factor(csr)
 
     monkeypatch.setenv("DDPS_NO_NATIVE", "1")
-    import domain_decomposed_pde_solver_tpu.utils.native as nat
+    import domain_decomposed_pde_solver.utils.native as nat
 
     monkeypatch.setattr(nat, "_tried", False)
     monkeypatch.setattr(nat, "_lib", None)
@@ -123,8 +123,8 @@ def test_ilu0_tridiagonal_exact_inverse():
 
 
 def test_ilu0_accelerates_gmres():
-    from domain_decomposed_pde_solver_tpu.ops.ell import ell_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import gmres_solve
+    from domain_decomposed_pde_solver.ops.ell import ell_from_csr
+    from domain_decomposed_pde_solver.solvers import gmres_solve
 
     # Ill-conditioned: near-singular Laplacian (tiny shift), like the
     # reduced heat system with few boundary nodes.
@@ -168,7 +168,7 @@ def test_ilut_native_matches_fallback(monkeypatch):
     involved (high fill keeps everything); at capped fill both must still
     produce same-sized factors and equal diagonals (the top-p selection may
     break |value| ties differently — both are valid ILUTs)."""
-    from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import _ilut_factor
+    from domain_decomposed_pde_solver.solvers.precond.ilu import _ilut_factor
 
     S = _laplacian(150, 6, 11)
     csr = _to_csr(S)
@@ -176,7 +176,7 @@ def test_ilut_native_matches_fallback(monkeypatch):
     nat_cap = _ilut_factor(csr, 1.0, 0.0)
 
     monkeypatch.setenv("DDPS_NO_NATIVE", "1")
-    import domain_decomposed_pde_solver_tpu.utils.native as natmod
+    import domain_decomposed_pde_solver.utils.native as natmod
 
     monkeypatch.setattr(natmod, "_tried", False)
     monkeypatch.setattr(natmod, "_lib", None)
@@ -197,7 +197,7 @@ def test_ilut_native_matches_fallback(monkeypatch):
 def test_ilut_high_fill_is_exact_lu():
     """With unlimited fill and no dropping, ILUT == complete LU: one apply
     solves the system exactly."""
-    from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import (
+    from domain_decomposed_pde_solver.solvers.precond.ilu import (
         ilut_preconditioner,
     )
 
@@ -216,9 +216,9 @@ def test_ilut_default_beats_jacobi_in_gmres():
     needs far fewer iterations than Jacobi on an ill-conditioned system."""
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops.ell import ell_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import gmres_solve
-    from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import (
+    from domain_decomposed_pde_solver.ops.ell import ell_from_csr
+    from domain_decomposed_pde_solver.solvers import gmres_solve
+    from domain_decomposed_pde_solver.solvers.precond.ilu import (
         ilut_preconditioner,
     )
 
@@ -239,7 +239,7 @@ def test_ilut_default_beats_jacobi_in_gmres():
 
 
 def test_ilut_droptol_reduces_fill():
-    from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import _ilut_factor
+    from domain_decomposed_pde_solver.solvers.precond.ilu import _ilut_factor
 
     S = _laplacian(300, 8, 14)
     csr = _to_csr(S)

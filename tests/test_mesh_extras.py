@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import (
+from domain_decomposed_pde_solver.io import (
     box_mesh,
     nodesets_from_sidesets,
     read_exodus,
     side_local_nodes,
     sideset_nodes,
 )
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.parallel import (
     node_ownership_from_element_partition,
     partition_mesh_elements,
 )

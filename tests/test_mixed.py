@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.solvers.mixed import iterative_refinement_solve
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.solvers.mixed import iterative_refinement_solve
 
 
 def test_refinement_reaches_f64_accuracy(data_dir):
@@ -35,26 +35,27 @@ def test_refinement_warm_start(data_dir):
     assert res2.refinements == 0 and res2.converged
 
 
-@pytest.mark.parametrize("pad", [False, True])
-def test_refinement_device_residual_path(pad):
+@pytest.mark.parametrize("prestaged", [False, True])
+def test_refinement_device_residual_path(prestaged):
     """The fused on-device f64-residual loop engages for stencil operators
-    (f32-exact Laplacian data) and matches the host path's accuracy."""
+    (f32-exact Laplacian data) and matches the host path's accuracy, with
+    the RHS uploaded by the solver or pre-staged on the device."""
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops import choose_operator
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.ops import choose_operator
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         infer_free_grid,
     )
 
     mesh = box_mesh(14, 14, 14, elem_type="TETRA4")
     sys_ = assemble_heat_system(mesh)
     dims = infer_free_grid(mesh, sys_.free_to_node)
-    A = choose_operator(
-        sys_.A, dtype=jnp.float32, grid_dims=dims,
-        pad_stencil="always" if pad else "never",
+    A = choose_operator(sys_.A, dtype=jnp.float32, grid_dims=dims)
+    assert type(A).__name__ == "StencilOperator"
+    b_dev = A.put_vector(sys_.b, dtype=np.float64) if prestaged else None
+    res = iterative_refinement_solve(
+        sys_.A, sys_.b, operator=A, tol=1e-11, b_device=b_dev
     )
-    assert type(A).__name__ == ("PadStencilOperator" if pad else "StencilOperator")
-    res = iterative_refinement_solve(sys_.A, sys_.b, operator=A, tol=1e-11)
     assert res.converged and res.relres < 1e-11
     res_host = iterative_refinement_solve(
         sys_.A, sys_.b, operator=A, tol=1e-11, device_residual=False
@@ -70,19 +71,21 @@ def test_refinement_device_residual_path(pad):
         )
 
 
-def test_refinement_over_bsg_operator():
-    """f64-accurate answers (1e-10) with the BSG fast path as the inner
-    solver — the uniform put/get interface makes the layouts compose."""
+def test_refinement_over_unstructured_operator(data_dir):
+    """f64-accurate answers (1e-10) with the unstructured f32 operator that
+    ``choose_operator`` picks as the inner solver's matvec."""
+    import jax.numpy as jnp
     import numpy as np
 
-    from domain_decomposed_pde_solver_tpu.io import read_exodus
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.ops.bsg import bsg_from_csr
-    from domain_decomposed_pde_solver_tpu.solvers import iterative_refinement_solve
+    from domain_decomposed_pde_solver.io import read_exodus
+    from domain_decomposed_pde_solver.models import assemble_heat_system
+    from domain_decomposed_pde_solver.ops import choose_operator
+    from domain_decomposed_pde_solver.solvers import iterative_refinement_solve
 
-    mesh = read_exodus("/root/reference/data/brick.exo")
+    mesh = read_exodus(str(data_dir / "brick.exo"))
     sy = assemble_heat_system(mesh)
-    B = bsg_from_csr(sy.A)
+    B = choose_operator(sy.A, dtype=jnp.float32)
+    assert type(B).__name__ in ("SplitELLMatrix", "ELLMatrix")
     res = iterative_refinement_solve(
         sy.A, sy.b, operator=B, tol=1e-10, inner_tol=1e-5
     )
@@ -100,7 +103,7 @@ def test_f32_exact_gate_memoized():
     """The device_residual='auto' exactness scan is O(nnz) (1 GB of CSR
     data at 10M DOF) and sits on the per-call path — it must run once per
     matrix object and be correct both ways."""
-    from domain_decomposed_pde_solver_tpu.solvers.mixed import _f32_exact
+    from domain_decomposed_pde_solver.solvers.mixed import _f32_exact
 
     sys_ = assemble_heat_system(box_mesh(8, 8, 8, elem_type="TETRA4"))
     A = sys_.A
@@ -112,7 +115,7 @@ def test_f32_exact_gate_memoized():
     A.data[0] = np.float64(1) + np.float64(2) ** -40
     assert _f32_exact(A) is True
     # A fresh object with non-representable data reports False.
-    from domain_decomposed_pde_solver_tpu.ops.csr import CSRMatrix
+    from domain_decomposed_pde_solver.ops.csr import CSRMatrix
 
     B = CSRMatrix(
         indptr=A.indptr, indices=A.indices, data=A.data.copy(), shape=A.shape
@@ -125,7 +128,7 @@ def test_adaptive_inner_tol_schedule():
     full-depth inner solve would overshoot the target by orders of
     magnitude); early sweeps keep the configured inner_tol; the result is
     clamped to a solver-meaningful range."""
-    from domain_decomposed_pde_solver_tpu.solvers.mixed import (
+    from domain_decomposed_pde_solver.solvers.mixed import (
         _adaptive_inner_tol,
     )
 

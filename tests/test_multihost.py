@@ -62,8 +62,8 @@ def test_two_process_distributed_assembly(tmp_path):
     """True distributed assembly at >=1M DOF: 2 processes, each reading
     only its element slice, all_to_all edge exchange, per-rank row
     assembly, bit-parity vs the single-host plan + sharded SpMV check."""
-    from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-    from domain_decomposed_pde_solver_tpu.io.exodus import write_exodus
+    from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+    from domain_decomposed_pde_solver.io.exodus import write_exodus
 
     mesh_path = str(tmp_path / "box1m.exo")
     write_exodus(mesh_path, box_mesh(100, 100, 100, elem_type="HEX8"))

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.utils.native import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.utils.native import (
     aggregate_greedy_native,
     dual_graph_native,
     native_available,
@@ -58,8 +58,8 @@ def test_aggregate_greedy_matches_python(data_dir):
     os.environ["DDPS_NO_NATIVE"] = "1"
     try:
         # Force the Python path via a fresh import state.
-        from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-        from domain_decomposed_pde_solver_tpu.solvers.precond import amg as amg_mod
+        from domain_decomposed_pde_solver.models import assemble_heat_system
+        from domain_decomposed_pde_solver.solvers.precond import amg as amg_mod
 
         mesh = read_exodus(str(data_dir / "brick.exo"))
         sys_ = assemble_heat_system(mesh)
@@ -101,7 +101,7 @@ def test_aggregate_greedy_matches_python(data_dir):
 
 
 def test_rcm_reduces_bandwidth(data_dir):
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
+    from domain_decomposed_pde_solver.models import assemble_heat_system
 
     mesh = read_exodus(str(data_dir / "brick.exo"))
     sys_ = assemble_heat_system(mesh)
@@ -118,11 +118,11 @@ def test_rcm_reduces_bandwidth(data_dir):
 
 
 def test_pack_ell_matches_scatter(data_dir):
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
+    from domain_decomposed_pde_solver.models import assemble_heat_system
 
     mesh = read_exodus(str(data_dir / "2blocks.exo"))
     # 2blocks has no nodesets -> full Laplacian over all nodes
-    from domain_decomposed_pde_solver_tpu.models import assemble_full_laplacian
+    from domain_decomposed_pde_solver.models import assemble_full_laplacian
 
     A = assemble_full_laplacian(mesh)
     n_pad, K = 40, A.max_row_nnz
@@ -141,7 +141,7 @@ def test_pack_ell_matches_scatter(data_dir):
 def test_rap_single_pass_matches_scipy():
     import scipy.sparse as sp
 
-    from domain_decomposed_pde_solver_tpu.utils.native import (
+    from domain_decomposed_pde_solver.utils.native import (
         native_available, rap_galerkin_native)
 
     if not native_available():
@@ -167,7 +167,7 @@ def test_rap_single_pass_matches_scipy():
 def test_gershgorin_bound_contains_lmax():
     import scipy.sparse as sp
 
-    from domain_decomposed_pde_solver_tpu.utils.native import (
+    from domain_decomposed_pde_solver.utils.native import (
         gersh_dinv_native, native_available)
 
     if not native_available():
@@ -192,7 +192,7 @@ def test_sa_prolongator_i32_matches_i64():
     to the scipy formula P = (I - s D^-1 A) T."""
     import scipy.sparse as sp
 
-    from domain_decomposed_pde_solver_tpu.utils.native import (
+    from domain_decomposed_pde_solver.utils.native import (
         sa_prolongator_native,
     )
 
@@ -238,10 +238,10 @@ def test_sa_prolongator_i32_matches_i64():
 def test_assemble_from_conn_matches_two_kernel(data_dir, name):
     """The fused connectivity->reduced-system kernel must be byte-identical
     to the node_adjacency + assemble_reduced composition."""
-    from domain_decomposed_pde_solver_tpu.models.heat import (
+    from domain_decomposed_pde_solver.models.heat import (
         _adjacency_csr_native,
     )
-    from domain_decomposed_pde_solver_tpu.utils.native import (
+    from domain_decomposed_pde_solver.utils.native import (
         assemble_from_conn_native,
         assemble_reduced_native,
     )

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import (
     assemble_poisson_p2,
     elevate_to_p2,
 )
@@ -55,12 +55,12 @@ def test_p2_exact_on_quadratics(u_exact, f):
 def test_p2_system_solves_with_framework_cg():
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops import (
+    from domain_decomposed_pde_solver.ops import (
         choose_operator,
         pad_vector,
         unpad_vector,
     )
-    from domain_decomposed_pde_solver_tpu.solvers import (
+    from domain_decomposed_pde_solver.solvers import (
         cg_solve,
         smoothed_aggregation_setup,
     )

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import coo_to_csr
+from domain_decomposed_pde_solver.parallel import (
     build_dual_graph,
     decompose_mesh,
     edgecut,

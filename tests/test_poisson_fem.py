@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
-from domain_decomposed_pde_solver_tpu.models.poisson_fem import assemble_poisson_fem
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.jacobi import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.io.mesh import NodeSet
+from domain_decomposed_pde_solver.models.poisson_fem import assemble_poisson_fem
+from domain_decomposed_pde_solver.ops import choose_operator, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.jacobi import (
     DiagonalPreconditioner,
 )
 
@@ -94,8 +94,8 @@ def test_fem_solver_pipeline_integration():
 
 def _plane_sideset(mesh, ss_id, xval):
     """All TETRA4 faces lying on the plane x == xval, as a SideSet."""
-    from domain_decomposed_pde_solver_tpu.io.mesh import SideSet
-    from domain_decomposed_pde_solver_tpu.io.sides import side_local_nodes
+    from domain_decomposed_pde_solver.io.mesh import SideSet
+    from domain_decomposed_pde_solver.io.sides import side_local_nodes
 
     elems, sides = [], []
     off = 0
@@ -115,7 +115,7 @@ def _plane_sideset(mesh, ss_id, xval):
 
 
 def _dirichlet_x0_mesh():
-    from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
 
     mesh = box_mesh(9, 8, 7, elem_type="TETRA4")
     x0 = np.nonzero(np.isclose(mesh.coords[:, 0], 0.0))[0]
@@ -155,7 +155,7 @@ def test_robin_impedance_exact_for_linear_solution():
 
 
 def test_surface_load_total_equals_flux_times_area():
-    from domain_decomposed_pde_solver_tpu.models import surface_load
+    from domain_decomposed_pde_solver.models import surface_load
 
     mesh = _dirichlet_x0_mesh()
     load = surface_load(mesh, 77, 3.0)
@@ -176,8 +176,8 @@ def test_unknown_sideset_raises():
 
 def _hex_plane_sideset(mesh, ss_id, xval):
     """All HEX8 faces lying on the plane x == xval, as a SideSet."""
-    from domain_decomposed_pde_solver_tpu.io.mesh import SideSet
-    from domain_decomposed_pde_solver_tpu.io.sides import side_local_nodes
+    from domain_decomposed_pde_solver.io.mesh import SideSet
+    from domain_decomposed_pde_solver.io.sides import side_local_nodes
 
     elems, sides = [], []
     off = 0
@@ -197,7 +197,7 @@ def _hex_plane_sideset(mesh, ss_id, xval):
 
 
 def _hex_dirichlet_x0_mesh(n=(6, 5, 4)):
-    from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
 
     mesh = box_mesh(*n, elem_type="HEX8")
     x0 = np.nonzero(np.isclose(mesh.coords[:, 0], 0.0))[0]
@@ -210,7 +210,7 @@ def _hex_dirichlet_x0_mesh(n=(6, 5, 4)):
 
 def test_hex_stiffness_rows_sum_zero():
     mesh = box_mesh(3, 3, 3, elem_type="HEX8")
-    from domain_decomposed_pde_solver_tpu.models.poisson_fem import (
+    from domain_decomposed_pde_solver.models.poisson_fem import (
         _hex_local_stiffness,
     )
 
@@ -221,7 +221,7 @@ def test_hex_stiffness_rows_sum_zero():
 
 def test_hex_patch_test_linear_exact():
     """Trilinear hexes reproduce u = a + bx + cy + dz exactly (patch test)."""
-    from domain_decomposed_pde_solver_tpu.io.mesh import NodeSet
+    from domain_decomposed_pde_solver.io.mesh import NodeSet
 
     mesh = box_mesh(4, 3, 3, elem_type="HEX8")
     # Dirichlet everywhere on the boundary, value from the linear field.
@@ -249,7 +249,7 @@ def test_hex_patch_test_linear_exact():
 
 def _lift_rhs(mesh, sys_, u_bdry):
     """RHS for K_ff x = -K_fb g with arbitrary boundary data g."""
-    from domain_decomposed_pde_solver_tpu.models.poisson_fem import (
+    from domain_decomposed_pde_solver.models.poisson_fem import (
         _hex_local_stiffness,
     )
 
@@ -304,7 +304,7 @@ def test_hex_robin_impedance_exact_for_linear_solution():
 
 def test_quad_surface_load_total_equals_flux_times_area():
     mesh = _hex_dirichlet_x0_mesh()
-    from domain_decomposed_pde_solver_tpu.models.poisson_fem import surface_load
+    from domain_decomposed_pde_solver.models.poisson_fem import surface_load
 
     load = surface_load(mesh, 77, 4.0)
     np.testing.assert_allclose(load.sum(), 4.0 * 1.0, rtol=1e-12)
@@ -314,7 +314,7 @@ def test_quad_surface_mass_row_sums():
     """Row sums of the quad surface mass equal the load weights
     (partition of unity on the face)."""
     mesh = _hex_dirichlet_x0_mesh()
-    from domain_decomposed_pde_solver_tpu.models.poisson_fem import (
+    from domain_decomposed_pde_solver.models.poisson_fem import (
         surface_load,
         surface_mass_coo,
     )

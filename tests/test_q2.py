@@ -3,8 +3,8 @@
 import numpy as np
 import scipy.sparse as sp
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models.q2 import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models.q2 import (
     assemble_poisson_q2,
     elevate_to_q2,
 )
@@ -104,8 +104,8 @@ def test_q2_system_solves_with_cg():
     """The Q2 system is SPD and drops into the framework CG."""
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops import ell_from_csr, pad_vector
-    from domain_decomposed_pde_solver_tpu.solvers import (
+    from domain_decomposed_pde_solver.ops import ell_from_csr, pad_vector
+    from domain_decomposed_pde_solver.solvers import (
         cg_solve,
         jacobi_preconditioner,
     )
@@ -126,11 +126,11 @@ def test_q2_system_solves_with_cg():
 def test_vertex_solution_roundtrip(tmp_path):
     """Quadratic solves write through the standard Exodus pipeline via the
     vertex projection."""
-    from domain_decomposed_pde_solver_tpu.io import (
+    from domain_decomposed_pde_solver.io import (
         ExodusSolutionWriter,
         read_nodal_vars,
     )
-    from domain_decomposed_pde_solver_tpu.models.q2 import vertex_solution
+    from domain_decomposed_pde_solver.models.q2 import vertex_solution
 
     mesh = box_mesh(3, 3, 3, elem_type="HEX8")
     coords, conn, bnd = elevate_to_q2(mesh)

@@ -4,15 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus, refine_uniform
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import ell_from_csr, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus, refine_uniform
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import ell_from_csr, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     cg_solve_resumable,
     jacobi_preconditioner,
 )
-from domain_decomposed_pde_solver_tpu.utils.checkpoint import (
+from domain_decomposed_pde_solver.utils.checkpoint import (
     CGCheckpoint,
     load_checkpoint,
     save_checkpoint,

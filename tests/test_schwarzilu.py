@@ -4,7 +4,7 @@ The reference's production run is ``mpirun -n P`` Belos GMRES + Ifpack2
 ILUT, and Ifpack2 factors each rank's LOCAL diagonal block with no
 preconditioner communication (``BelosMueLuSolver.cpp:92-106``).  These
 tests validate the framework's literal analogue
-(:mod:`domain_decomposed_pde_solver_tpu.parallel.schwarzilu`): per-part
+(:mod:`domain_decomposed_pde_solver.parallel.schwarzilu`): per-part
 ILUT factors stacked to uniform shapes, applied inside ``shard_map`` with
 level-scheduled triangular sweeps.
 """
@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, coo_to_csr
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator, coo_to_csr
+from domain_decomposed_pde_solver.parallel import (
     ShardedOperator,
     build_block_ilu,
     build_halo_plan,
@@ -25,11 +25,11 @@ from domain_decomposed_pde_solver_tpu.parallel import (
     partition_graph,
     sharded_gmres_solve,
 )
-from domain_decomposed_pde_solver_tpu.parallel.schwarz import (
+from domain_decomposed_pde_solver.parallel.schwarz import (
     _local_diagonal_block,
 )
-from domain_decomposed_pde_solver_tpu.solvers import gmres_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.ilu import (
+from domain_decomposed_pde_solver.solvers import gmres_solve
+from domain_decomposed_pde_solver.solvers.precond.ilu import (
     ilut_preconditioner,
 )
 
@@ -133,7 +133,7 @@ def test_block_ilut_within_2x_of_single_device(data_dir):
 
 def test_compare_preconditioners_schwarz_row(data_dir):
     """The comparison harness grows a schwarz_ilut row when given a plan."""
-    from domain_decomposed_pde_solver_tpu.utils.compare import (
+    from domain_decomposed_pde_solver.utils.compare import (
         compare_preconditioners,
     )
 

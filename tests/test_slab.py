@@ -6,15 +6,15 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh, read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.parallel import (
+from domain_decomposed_pde_solver.io import box_mesh, read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.parallel import (
     build_slab_plan,
     make_device_mesh,
     slab_cg_solve,
 )
-from domain_decomposed_pde_solver_tpu.parallel.sharded import AXIS
-from domain_decomposed_pde_solver_tpu.parallel.slab import SlabDIAOperator
+from domain_decomposed_pde_solver.parallel.sharded import AXIS
+from domain_decomposed_pde_solver.parallel.slab import SlabDIAOperator
 
 
 @pytest.fixture(scope="module")
@@ -84,16 +84,16 @@ def test_slab_stencil_cg_matches_serial():
     import jax
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.ops import choose_operator
-    from domain_decomposed_pde_solver_tpu.ops.stencil import StencilOperator
-    from domain_decomposed_pde_solver_tpu.parallel import slab_stencil_cg_solve
-    from domain_decomposed_pde_solver_tpu.solvers import (
+    from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+    from domain_decomposed_pde_solver.models import assemble_heat_system
+    from domain_decomposed_pde_solver.ops import choose_operator
+    from domain_decomposed_pde_solver.ops.stencil import StencilOperator
+    from domain_decomposed_pde_solver.parallel import slab_stencil_cg_solve
+    from domain_decomposed_pde_solver.solvers import (
         cg_solve,
         jacobi_preconditioner,
     )
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         infer_free_grid,
     )
 

@@ -4,7 +4,7 @@ The defining property this file locks in: CG preconditioned by the
 *sharded* hierarchy needs the SAME number of iterations as the
 single-device hierarchy (it is the same operator algebra, just slab-laid),
 i.e. iteration counts are P-independent — the property block-Schwarz
-cycles lack (35 vs 10 at P=4, see docs/PERF.md) and the role MueLu was
+cycles lack (35 vs 10 at P=4) and the role MueLu was
 meant to fill in the reference (``BelosMueLuSolver.cpp:11``).
 """
 
@@ -13,15 +13,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.amg import (
     infer_free_grid,
     smoothed_aggregation_setup,
 )
-from domain_decomposed_pde_solver_tpu.parallel.slabamg import (
+from domain_decomposed_pde_solver.parallel.slabamg import (
     build_slab_amg,
     slab_amg_cg_solve,
 )
@@ -84,7 +84,7 @@ def test_transfers_match_global_brick(box):
     w = rng.standard_normal(n).astype(np.float32)
 
     # Global restriction R w.
-    from domain_decomposed_pde_solver_tpu.ops.ell import pad_vector
+    from domain_decomposed_pde_solver.ops.ell import pad_vector
 
     want = np.asarray(P_glob.rmatvec(pad_vector(w, P_glob.n_pad_f)))
 
@@ -98,10 +98,10 @@ def test_transfers_match_global_brick(box):
     assert want.shape[0] == P_glob.n_pad_c
 
 
-def test_build_rejects_unstructured():
-    from domain_decomposed_pde_solver_tpu.io import read_exodus
+def test_build_rejects_unstructured(data_dir):
+    from domain_decomposed_pde_solver.io import read_exodus
 
-    mesh = read_exodus("/root/reference/data/brick.exo")
+    mesh = read_exodus(str(data_dir / "brick.exo"))
     sy = assemble_heat_system(mesh)
     assert build_slab_amg(sy.A, (12, 11, 14), 4) is None
 
@@ -111,8 +111,8 @@ def test_cli_routes_structured_amg_partitions(tmp_path):
     through the sharded global hierarchy and converges."""
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    from domain_decomposed_pde_solver_tpu.io.exodus import write_exodus
-    from domain_decomposed_pde_solver_tpu.cli.solve import main
+    from domain_decomposed_pde_solver.io.exodus import write_exodus
+    from domain_decomposed_pde_solver.cli.solve import main
 
     mesh = box_mesh(20, 20, 26, elem_type="TETRA4")
     inp = str(tmp_path / "box.exo")
@@ -126,7 +126,7 @@ def test_cli_routes_structured_amg_partitions(tmp_path):
         ]
     )
     assert rc in (0, None)
-    from domain_decomposed_pde_solver_tpu.io import read_nodal_vars
+    from domain_decomposed_pde_solver.io import read_nodal_vars
 
     names, times, vals = read_nodal_vars(out)
     assert len(times) >= 2

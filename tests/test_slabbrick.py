@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.parallel.slab import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.parallel.slab import (
     build_slab_plan,
     slab_cg_solve,
 )
-from domain_decomposed_pde_solver_tpu.parallel.slabbrick import (
+from domain_decomposed_pde_solver.parallel.slabbrick import (
     build_slab_brick_precond,
 )
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+from domain_decomposed_pde_solver.solvers.precond.amg import (
     infer_free_grid,
 )
 

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import (
     assemble_full_laplacian,
     assemble_heat_system,
 )
-from domain_decomposed_pde_solver_tpu.ops import ell_from_csr, ell_spmv, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.solvers import (
+from domain_decomposed_pde_solver.ops import ell_from_csr, ell_spmv, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.solvers import (
     cg_solve,
     cg_solve_snapshots,
     chebyshev_preconditioner,
@@ -57,7 +57,7 @@ def test_gmres_nonsymmetric():
     rng = np.random.default_rng(3)
     n = 40
     dense = np.eye(n) * 10 + rng.standard_normal((n, n)) * 0.5  # nonsymmetric
-    from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
+    from domain_decomposed_pde_solver.ops import coo_to_csr
 
     rows, cols = np.nonzero(dense)
     csr = coo_to_csr(rows, cols, dense[rows, cols], (n, n))
@@ -114,7 +114,7 @@ def test_power_method_matches_numpy_eig(data_dir):
 
 
 def test_bicgstab_spd_and_nonsymmetric(data_dir):
-    from domain_decomposed_pde_solver_tpu.solvers import bicgstab_solve
+    from domain_decomposed_pde_solver.solvers import bicgstab_solve
 
     _, sys_, A, b = setup_system(data_dir, "brick.exo")
     res = bicgstab_solve(A, b, jnp.zeros_like(b),
@@ -128,7 +128,7 @@ def test_bicgstab_spd_and_nonsymmetric(data_dir):
     rng = np.random.default_rng(3)
     n = 60
     dense = np.eye(n) * 10 + rng.standard_normal((n, n)) * 0.5
-    from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
+    from domain_decomposed_pde_solver.ops import coo_to_csr
 
     rows, cols = np.nonzero(dense)
     csr = coo_to_csr(rows, cols, dense[rows, cols], (n, n))
@@ -147,7 +147,7 @@ def test_cg_terminates_on_breakdown():
     """A singular system with incompatible RHS must terminate (not hang):
     NaN residuals make the while_loop condition false — the framework's
     failure-detection behavior (converged=False, finite iteration count)."""
-    from domain_decomposed_pde_solver_tpu.ops import coo_to_csr
+    from domain_decomposed_pde_solver.ops import coo_to_csr
 
     # Singular: the zero matrix.
     n = 16
@@ -162,7 +162,7 @@ def test_cg_terminates_on_breakdown():
 def test_lanczos_spectrum_extremes(data_dir):
     """Lanczos must recover both spectrum edges to high accuracy (vs the
     power method, which only sees lambda_max and converges slowly)."""
-    from domain_decomposed_pde_solver_tpu.solvers.lanczos import lanczos_extremes
+    from domain_decomposed_pde_solver.solvers.lanczos import lanczos_extremes
 
     _, sys_, A, _ = setup_system(data_dir, "brick.exo")
     rng = np.random.default_rng(0)

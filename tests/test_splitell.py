@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import coo_to_csr, pad_vector, unpad_vector
-from domain_decomposed_pde_solver_tpu.ops.splitell import splitell_from_csr
-from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-from domain_decomposed_pde_solver_tpu.solvers.precond.jacobi import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import coo_to_csr, pad_vector, unpad_vector
+from domain_decomposed_pde_solver.ops.splitell import splitell_from_csr
+from domain_decomposed_pde_solver.solvers import cg_solve
+from domain_decomposed_pde_solver.solvers.precond.jacobi import (
     DiagonalPreconditioner,
 )
 
@@ -28,7 +28,7 @@ def test_splitell_matvec_matches_csr(system):
 
 
 def test_splitell_total_ops_reduced(system):
-    from domain_decomposed_pde_solver_tpu.ops import ell_from_csr
+    from domain_decomposed_pde_solver.ops import ell_from_csr
 
     ell = ell_from_csr(system.A, dtype=jnp.float32)
     spl = splitell_from_csr(system.A, dtype=jnp.float32)

@@ -11,14 +11,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.ops import choose_operator, dia_from_csr
-from domain_decomposed_pde_solver_tpu.ops.stencil import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.ops import choose_operator, dia_from_csr
+from domain_decomposed_pde_solver.ops.stencil import (
     StencilOperator,
     stencil_from_dia,
 )
-from domain_decomposed_pde_solver_tpu.solvers.precond.amg import infer_free_grid
+from domain_decomposed_pde_solver.solvers.precond.amg import infer_free_grid
 
 
 def _case(elem_type, n):
@@ -60,7 +60,7 @@ def test_choose_operator_selects_stencil_with_dims():
     A = choose_operator(sy.A, dtype=jnp.float32, grid_dims=dims)
     assert isinstance(A, StencilOperator)
     # Without dims it stays DIA; with wrong dims it must reject.
-    from domain_decomposed_pde_solver_tpu.ops.dia import DIAMatrix
+    from domain_decomposed_pde_solver.ops.dia import DIAMatrix
 
     assert isinstance(choose_operator(sy.A, dtype=jnp.float32), DIAMatrix)
     assert not isinstance(
@@ -85,7 +85,7 @@ def test_verifier_rejects_perturbed_matrix():
 
 
 def test_stencil_in_cg_with_jacobi():
-    from domain_decomposed_pde_solver_tpu.solvers import (
+    from domain_decomposed_pde_solver.solvers import (
         cg_solve,
         jacobi_preconditioner,
     )
@@ -106,8 +106,8 @@ def test_stencil_in_cg_with_jacobi():
 
 
 def test_amg_setup_uses_stencil_fine_level():
-    from domain_decomposed_pde_solver_tpu.solvers import cg_solve
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers import cg_solve
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         smoothed_aggregation_setup,
     )
 

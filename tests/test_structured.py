@@ -10,9 +10,9 @@ index maps must be IDENTICAL at every size/parity/element type.
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io.boxmesh import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.models.structured import (
+from domain_decomposed_pde_solver.io.boxmesh import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.models.structured import (
     box_lattice_tables,
     structured_box_parts,
     structured_box_system,
@@ -83,11 +83,11 @@ def test_device_parts_bit_identical(nx, ny, nz, et, device):
     arrays) must equal the host pipeline's stencil parts + b exactly."""
     import jax.numpy as jnp
 
-    from domain_decomposed_pde_solver_tpu.ops.dia import pack_dia_host
-    from domain_decomposed_pde_solver_tpu.ops.stencil import (
+    from domain_decomposed_pde_solver.ops.dia import pack_dia_host
+    from domain_decomposed_pde_solver.ops.stencil import (
         stencil_parts_from_packed,
     )
-    from domain_decomposed_pde_solver_tpu.solvers.precond.amg import (
+    from domain_decomposed_pde_solver.solvers.precond.amg import (
         infer_free_grid,
     )
 
@@ -122,7 +122,7 @@ def test_device_parts_bit_identical(nx, ny, nz, et, device):
         np.asarray(out["degree"])[:n], sy.degree.astype(np.float32)
     )
     # And the operator built from the device parts IS the matrix.
-    from domain_decomposed_pde_solver_tpu.ops.stencil import (
+    from domain_decomposed_pde_solver.ops.stencil import (
         stencil_from_parts,
     )
 

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import box_mesh
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.models.transient import transient_heat_solve
-from domain_decomposed_pde_solver_tpu.ops import choose_operator
+from domain_decomposed_pde_solver.io import box_mesh
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.models.transient import transient_heat_solve
+from domain_decomposed_pde_solver.ops import choose_operator
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,9 @@ import argparse
 import numpy as np
 import pytest
 
-from domain_decomposed_pde_solver_tpu.io import read_exodus
-from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-from domain_decomposed_pde_solver_tpu.utils import (
+from domain_decomposed_pde_solver.io import read_exodus
+from domain_decomposed_pde_solver.models import assemble_heat_system
+from domain_decomposed_pde_solver.utils import (
     PhaseTimer,
     SolveConfig,
     add_solve_args,
@@ -95,8 +95,8 @@ def test_preconditioner_comparison_amg_beats_ilut(data_dir):
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    from domain_decomposed_pde_solver_tpu.models import assemble_heat_system
-    from domain_decomposed_pde_solver_tpu.utils.compare import (
+    from domain_decomposed_pde_solver.models import assemble_heat_system
+    from domain_decomposed_pde_solver.utils.compare import (
         compare_preconditioners,
     )
 
